@@ -1,28 +1,26 @@
-"""Config-4 full-frame benchmark: 100k-tri textured terrain.
+"""Config-4 frame benchmark on the GPU: the 100k-tri textured terrain.
 
 Workload (BASELINE config 4): terrain_textured scene, 256x192, 2 spp,
-3 bounces, NEE on, packet BVH traversal (ops/pallas/mesh_kernel.py).
-Slope-protocol timing (same as bench.py): K frames inside one jitted
-scan, elapsed(K)-elapsed(1), salted RNG so the remote terminal cannot
-memoize.
+3 bounces, NEE on, through the wavefront integrator and the XLA BVH
+traversal (ops/triangle.py). Each frame is timed on the host clock
+around work that ends in block_until_ready; the median over --iters
+frames is reported, with the integrator's live-segment count.
 
 Usage: python -m benchmarks.bench_mesh [--size 256x192] [--spp 2]
-       [--bounces 3] [--iters 4] [--no-nee] [--no-packet]
+       [--bounces 3] [--iters 8] [--no-nee]
 """
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
-from functools import partial
 
 import jax
-import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpupt_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render
+from bench import card_line, require_gpu
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render
+from pathtracer.utils.cache import enable_compile_cache
 
 
 def main() -> None:
@@ -30,69 +28,33 @@ def main() -> None:
     ap.add_argument("--size", default="256x192")
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--bounces", type=int, default=3)
-    ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--iters", type=int, default=8)
     ap.add_argument("--no-nee", action="store_true")
-    ap.add_argument("--no-packet", action="store_true")
-    ap.add_argument("--no-shadow-sort", action="store_true",
-                    help="shadow waves ride the bounce-level carry order")
     args = ap.parse_args()
+    require_gpu()
+    enable_compile_cache()
     w, h = (int(x) for x in args.size.lower().split("x"))
-    print(f"devices: {jax.devices()}", flush=True)
+    print(f"card: {card_line()}; devices: {jax.devices()}", flush=True)
 
     scene, cs = sc.terrain_textured()
-    if not args.no_packet:
-        scene = sc.with_packet_mesh(scene)
-    camera = cm.make_camera(
-        cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"]
-    )
-    config = RenderConfig(
-        spp=args.spp, max_bounces=args.bounces, use_nee=not args.no_nee,
-        count_rays=True, shadow_self_sort=not args.no_shadow_sort,
-    )
+    camera = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h,
+                            cs["fov"])
+    config = RenderConfig(spp=args.spp, max_bounces=args.bounces,
+                          use_nee=not args.no_nee, count_rays=True)
     key = jax.random.key(0)
-
-    @partial(jax.jit, static_argnames=("k",))
-    def frames(salt, k):
-        def body(acc, i):
-            img, nrays = render(scene, camera, key, config,
-                                iteration=salt + i)
-            return (acc[0] + jnp.mean(img), acc[1] + nrays), None
-
-        (s, n), _ = jax.lax.scan(
-            body, (jnp.float32(0), jnp.int32(0)),
-            jnp.arange(k, dtype=jnp.int32),
-        )
-        return s, n
-
-    salt = jnp.int32(time.time_ns() & 0x0FFFFF)
-
-    def timed(k, s):
+    frame = jax.jit(lambda it: render(scene, camera, key, config,
+                                      iteration=it))
+    jax.block_until_ready(frame(0))  # compile
+    times, segs = [], 0
+    for i in range(1, args.iters + 1):
         t0 = time.perf_counter()
-        out, n = frames(s, k)
-        float(out)
-        return time.perf_counter() - t0, int(n)
-
-    it = args.iters
-    timed(1, salt + 1)
-    timed(it, salt + 2)
-    # min over repeats per endpoint: RTT noise is additive-positive
-    t1s, tns = [], []
-    n_tot = 0
-    for rep in range(3):
-        t1, _ = timed(1, salt + 3 + 2 * rep)
-        tn, n_tot = timed(it, salt + 4 + 2 * rep)
-        t1s.append(t1)
-        tns.append(tn)
-    elapsed = max(min(tns) - min(t1s), 1e-9)
-    ms = elapsed / (it - 1) * 1e3
-    segs = n_tot // it
-    print(
-        f"mesh frame {w}x{h}x{args.spp}spp b{args.bounces} "
-        f"nee={not args.no_nee} packet={not args.no_packet}: "
-        f"{ms:.1f} ms/frame  ({segs} segs, "
-        f"{segs * (it - 1) / elapsed / 1e6:.1f} Mrays/s)",
-        flush=True,
-    )
+        _, n = jax.block_until_ready(frame(i))
+        times.append(time.perf_counter() - t0)
+        segs = int(n)
+    ms = statistics.median(times) * 1e3
+    print(f"mesh frame {w}x{h}x{args.spp}spp b{args.bounces} "
+          f"nee={not args.no_nee}: {ms:.2f} ms/frame ({segs} segs, "
+          f"{segs / ms / 1e6:.3f} Gseg/s)", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,123 +1,79 @@
-"""Run every BASELINE.json config at its SPECIFIED scale (VERDICT r4
-item 4): one full render each, wall-clock + rays/s recorded, image
-artifact written to docs/images/.
+"""Run every BASELINE.json render config at its specified scale on the GPU:
+one full render each, time-to-image and live segments/s, the image
+written to --out.
 
   1. single diffuse sphere + area light   128x128 x 16 spp,  2 bounces
   2. cornell_boxes (walls + 2 boxes)      256x256 x 64 spp,  4 bounces
   3. cornell_glass (mirror + dielectric)  512x512 x 256 spp, 8 bounces
   4. terrain_textured (~100k tris, BVH)   1024x1024 x 512 spp, 3 bounces
 
-Configs 2-3 run on the persistent kernel (one render stack for all
-geometry); config 4 on the XLA wavefront + two-pass packet BVH kernel
-(textured materials); config 1 on the XLA reference path. Config 5
-(sharded inverse rendering) is covered by bench_fwdbwd/dryrun.
+Every config renders through the path models/progressive.choose_backend
+picks for it (all four hold meshes or are tiny, so the wavefront
+integrator). Config 5 (sharded inverse rendering) is chip_smoke.py's
+trainer phase. Compilation is warmed up outside the clock.
 
-Timing is honest wall-clock for the WHOLE render including compile-
-excluded warmup (we report both): a user's time-to-image, not a slope.
-
-Usage: python -m benchmarks.run_configs [--only N]
+Usage: python -m benchmarks.run_configs [--only N] [--out DIR]
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/tpupt_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from bench import card_line, require_gpu
+from pathtracer.io.image import save_png
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render
+from pathtracer.utils.cache import enable_compile_cache
 
-from tpu_pathtracer.io.image import save_png
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render_image
-from tpu_pathtracer.models.progressive import PersistentRenderer
+CONFIGS = {
+    1: ("config1", sc.single_sphere, 128, 128, 16, 16, 2),
+    2: ("config2", sc.cornell_boxes, 256, 256, 64, 16, 4),
+    3: ("config3", sc.cornell_glass, 512, 512, 256, 16, 8),
+    4: ("config4", sc.terrain_textured, 1024, 1024, 512, 2, 3),
+}
 
 
-def config1():
-    scene, cs = sc.single_sphere()
-    w, h, spp, mb = 128, 128, 16, 2
+def run(name, fixture, w, h, spp_total, spp_frame, bounces, out):
+    scene, cs = fixture()
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"])
-    cfg = RenderConfig(spp=spp, max_bounces=mb, use_nee=True)
-    render_image(scene, cam, jax.random.key(1), cfg).block_until_ready()
-    t0 = time.perf_counter()
-    img = render_image(scene, cam, jax.random.key(0), cfg)
-    img.block_until_ready()
-    el = time.perf_counter() - t0
-    save_png("docs/images/config1_spec.png", np.asarray(img))
-    # segments >= primary rays (2-bounce paths); report primary-ray floor
-    rays = w * h * spp
-    print(f"config1 128x128x16spp b2 (XLA): {el*1e3:.1f} ms "
-          f">= {rays/el/1e6:.0f} Mrays/s (primary floor)", flush=True)
-
-
-def _persistent(name, fix, w, h, spp, mb, budget=16, out=None):
-    scene, cs = fix()
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"])
-    cfg = RenderConfig(spp=spp, max_bounces=mb, use_nee=True)
-    r = PersistentRenderer(scene, cam, cfg, seed=1, budget=budget)
-    nr = r.step()  # compile warmup outside the clock
-    r2 = PersistentRenderer(scene, cam, cfg, seed=2, budget=budget)
-    t0 = time.perf_counter()
-    total = r2.render_to(spp)
-    jax.block_until_ready(r2.state.lr)
-    el = time.perf_counter() - t0
-    img = np.asarray(r2.image())
-    if out:
-        save_png(out, img)
-    print(f"{name} {w}x{h}x{spp}spp b{mb} (persistent kernel): "
-          f"{el:.2f} s wall, {total/el/1e9:.2f} Grays/s "
-          f"(min {r2.min_samples} samples/px, mean {img.mean():.4f})",
-          flush=True)
-
-
-def config4():
-    scene, cs = sc.terrain_textured()
-    scene = sc.with_packet_mesh(scene)
-    w, h, spp_total, mb = 1024, 1024, 512, 3
-    spp_frame = 2
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"])
-    cfg = RenderConfig(spp=spp_frame, max_bounces=mb, use_nee=True,
+    cfg = RenderConfig(spp=spp_frame, max_bounces=bounces, use_nee=True,
                        count_rays=True)
-    from tpu_pathtracer.models.integrator import render
-
     fn = jax.jit(lambda key, it: render(scene, cam, key, cfg, iteration=it))
-    img0, _ = fn(jax.random.key(0), 10_000)  # compile warmup
-    jax.block_until_ready(img0)
+    jax.block_until_ready(fn(jax.random.key(0), 10_000))  # compile
+    frames = spp_total // spp_frame
     t0 = time.perf_counter()
     acc = jnp.zeros((h, w, 3))
-    rays = 0
-    frames = spp_total // spp_frame
+    rays = jnp.int32(0)
     for i in range(frames):
-        img, nr = fn(jax.random.key(1), i)
+        img, n = fn(jax.random.key(1), i)
         acc = acc + img
-        rays += int(nr)
-    acc = acc / frames
-    jax.block_until_ready(acc)
+        rays = rays + n
+    acc = jax.block_until_ready(acc / frames)
     el = time.perf_counter() - t0
-    save_png("docs/images/config4_spec.png", np.asarray(acc))
-    print(f"config4 1024x1024x512spp b3 nee (XLA wavefront + two-pass "
-          f"packet BVH): {el:.1f} s wall ({el/frames*1e3:.1f} ms/frame of "
-          f"{spp_frame} spp), {rays/el/1e6:.0f} Mrays/s, "
-          f"mean {float(acc.mean()):.4f}", flush=True)
+    save_png(os.path.join(out, f"{name}_spec.png"), np.asarray(acc))
+    print(f"{name} {w}x{h}x{spp_total}spp b{bounces} nee: {el:.2f} s, "
+          f"{el / frames * 1e3:.2f} ms/frame of {spp_frame} spp, "
+          f"{int(rays) / el / 1e9:.3f} Gseg/s, mean {float(acc.mean()):.4f}",
+          flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", type=int, default=0)
+    ap.add_argument("--out", default="out/configs")
     args = ap.parse_args()
-    print(f"devices: {jax.devices()}", flush=True)
-    if args.only in (0, 1):
-        config1()
-    if args.only in (0, 2):
-        _persistent("config2", sc.cornell_boxes, 256, 256, 64, 4,
-                    out="docs/images/config2_spec.png")
-    if args.only in (0, 3):
-        _persistent("config3", sc.cornell_glass, 512, 512, 256, 8,
-                    out="docs/images/config3_spec.png")
-    if args.only in (0, 4):
-        config4()
+    require_gpu()
+    enable_compile_cache()
+    os.makedirs(args.out, exist_ok=True)
+    print(f"card: {card_line()}; devices: {jax.devices()}", flush=True)
+    for n, spec in CONFIGS.items():
+        if args.only in (0, n):
+            run(*spec, args.out)
 
 
 if __name__ == "__main__":

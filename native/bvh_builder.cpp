@@ -1,10 +1,10 @@
 // Native BVH builder: binned-SAH construction over triangle soups.
 //
-// Host-side native component of tpu-pathtracer (the analogue of the
+// Host-side native component of pathtracer (the analogue of the
 // reference renderer's C++ host layer, pathtracer.cu:172-220 — scene
 // preparation for the device). Emits the same *threaded* (skip-link) DFS
 // layout as the NumPy builder in models/mesh.py, so the two are
-// interchangeable behind tpu_pathtracer.native.bvh.build.
+// interchangeable behind pathtracer.native.bvh.build.
 //
 // Exposed as a C ABI for ctypes:
 //   int bvh_build(const float* tri_min, const float* tri_max,

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.models.scene import DIFFUSE, SPECULAR, TRANSMISSIVE
-from tpu_pathtracer.ops import bsdf, vecmath as vm
+from pathtracer.models.scene import DIFFUSE, SPECULAR, TRANSMISSIVE
+from pathtracer.ops import bsdf, vecmath as vm
 
 N = 100_000
 
@@ -81,7 +81,7 @@ def test_transmissive_splits_by_fresnel():
     up = np.array(vm.dot(wi, n)) > 0  # reflected lanes leave upward
     frac_reflected = up.mean()
     # Fresnel reflectance at this incidence angle for IOR 1.5:
-    from tpu_pathtracer.ops import optics
+    from pathtracer.ops import optics
     r = float(optics.fresnel_reflectance(wo[:1], n[:1], jnp.ones(1), jnp.full(1, 1.5))[0])
     np.testing.assert_allclose(frac_reflected, r, atol=0.01)
     np.testing.assert_allclose(np.array(pdf), np.ones(N), atol=1e-6)

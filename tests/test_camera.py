@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.models import camera as cm
-from tpu_pathtracer.ops import vecmath as vm
+from pathtracer.models import camera as cm
+from pathtracer.ops import vecmath as vm
 
 W, H = 640, 480
 

@@ -2,9 +2,9 @@
 import jax
 import numpy as np
 
-from tpu_pathtracer.models import camera as cm, progressive as prog, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig
-from tpu_pathtracer.utils import checkpoint as ckpt
+from pathtracer.models import camera as cm, progressive as prog, scene as sc
+from pathtracer.models.integrator import RenderConfig
+from pathtracer.utils import checkpoint as ckpt
 
 
 def test_progressive_resume_bit_exact(tmp_path):
@@ -37,7 +37,7 @@ def test_progressive_resume_bit_exact(tmp_path):
 
 
 def test_train_state_roundtrip(tmp_path):
-    from tpu_pathtracer.diff import inverse
+    from pathtracer.diff import inverse
 
     scene, _ = sc.single_sphere()
     opt = inverse.make_optimizer()

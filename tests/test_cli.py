@@ -1,11 +1,11 @@
-"""CLI smoke tests (tpu_pathtracer.cli) — the batch render surface.
+"""CLI smoke tests (pathtracer.cli) — the batch render surface.
 
 The reference's only "batch" surface is its GLUT window loop
 (main.cpp:205-232); the CLI is this framework's headless equivalent.
-These run on the CPU suite: cli.main no longer sets the process-wide
-persistent compile cache on CPU (that config once poisoned the rest of
-a pytest run — see the note in cli.cmd_render), so the CLI is safe to
-invoke in-process here.
+These run on the CPU suite: the CLI leaves the CPU backend without a
+persistent compile cache (utils/cache), so it is safe to invoke
+in-process here. On the CPU every render takes the wavefront integrator
+(models/progressive.choose_backend).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import json
 
 import numpy as np
 
-from tpu_pathtracer import cli
+from pathtracer import cli
 
 
 def _read_png_size(path):
@@ -29,7 +29,7 @@ def test_render_builtin_scene(tmp_path):
     hdr = tmp_path / "cornell.npy"
     rc = cli.main([
         "render", "--scene", "cornell", "--size", "32x24", "--spp", "4",
-        "--bounces", "4", "--iterations", "2", "--backend", "xla",
+        "--bounces", "4", "--iterations", "2",
         "-o", str(out), "--hdr-output", str(hdr), "-q",
     ])
     assert rc == 0
@@ -54,18 +54,45 @@ def test_render_json_scene_with_nee(tmp_path):
     out = tmp_path / "out.png"
     rc = cli.main([
         "render", "--scene", str(sf), "--size", "16x12", "--spp", "4",
-        "--bounces", "3", "--iterations", "1", "--nee", "--backend", "xla",
+        "--bounces", "3", "--iterations", "1", "--nee",
         "-o", str(out), "-q",
     ])
     assert rc == 0
     assert _read_png_size(out) == (16, 12)
 
 
-def test_invert_kernel_estimator_smoke():
-    """CLI inverse-rendering demo through the fused-kernel estimator
-    (interpret mode on CPU): runs, prints, loss path finite."""
+def test_backend_flag_is_gone():
+    """The device path is chosen in one place; no flag overrides it."""
+    import pytest
+
+    with pytest.raises(SystemExit):
+        cli.main(["render", "--backend", "pallas", "--size", "8x8", "-q"])
+
+
+def test_invert_smoke(capsys):
+    """CLI inverse-rendering demo through the sharded XLA train step:
+    runs, prints a finite loss per logged step and the recovered values."""
     rc = cli.main([
         "invert", "--size", "12x8", "--spp", "2", "--steps", "2",
-        "--estimator", "kernel",
     ])
     assert rc == 0
+    out = capsys.readouterr().out
+    losses = [float(line.split()[-1]) for line in out.splitlines()
+              if line.startswith("step")]
+    assert losses and np.isfinite(losses).all()
+    assert "recovered albedo" in out
+
+
+def test_render_checkpoint_resume(tmp_path):
+    """--checkpoint-dir snapshots the accumulator; a second run with a
+    higher --iterations resumes and finishes the render."""
+    d = str(tmp_path / "ck")
+    args = ["render", "--scene", "single-sphere", "--size", "8x8", "--spp",
+            "1", "--bounces", "2", "-q", "--checkpoint-dir", d,
+            "--checkpoint-every", "1"]
+    assert cli.main(args + ["--iterations", "2"]) == 0
+    from pathtracer.utils import checkpoint as ckpt
+
+    assert ckpt.latest_step(d) == 2
+    assert cli.main(args + ["--iterations", "3"]) == 0
+    assert ckpt.latest_step(d) == 3

@@ -4,9 +4,9 @@ attached-geom interior term, validated against finite differences.
 FD caveat: with fixed jitters the rendered functional is a STAIRCASE in
 geometry parameters (a sample either crosses the moving silhouette or it
 doesn't), so a SINGLE-iteration central difference carries large
-staircase noise — that noise, not estimator variance, set round 3's
-loose rtol 0.1-0.15. Measured evidence (VERDICT r3 item 8, offline
-experiment on this exact fixture):
+staircase noise — that noise, not estimator variance, set an earlier
+loose rtol 0.1-0.15. Measured evidence (offline experiment on this exact
+fixture):
 
     estimator, radius d/dr over 6 edge-seed replicates:
         n_edge  4096: 394.31 +- 0.07
@@ -16,20 +16,22 @@ experiment on this exact fixture):
         -> relative gap 0.11% (radius), 0.84% (center z, 52.22 +- 0.88)
 
 So the tests below average FD over several iterations and assert at
-rtol 2e-2 (radius) / 5e-2 (center z) — an order tighter than round 3,
+rtol 2e-2 (radius) / 5e-2 (center z) — an order tighter than before,
 bounded by the remaining FD sem, not the estimator.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import tpu_pathtracer.models.scene as sc
-import tpu_pathtracer.models.camera as cm
-from tpu_pathtracer.models.integrator import RenderConfig, render
-from tpu_pathtracer.diff.geometry import geometry_grads
+import pathtracer.models.scene as sc
+import pathtracer.models.camera as cm
+from pathtracer.models.integrator import RenderConfig, render
+from pathtracer.diff.geometry import geometry_grads
 
 W, H = 48, 36
 
@@ -49,7 +51,7 @@ def coverage_case():
     )
 
     def J(centers, radii, it=0):
-        s = scene.replace(centers=centers, radii=radii)
+        s = dataclasses.replace(scene, centers=centers, radii=radii)
         return float(jnp.sum(render(s, cam, key, config, iteration=it)
                              * wimg))
 
@@ -61,7 +63,7 @@ def test_boundary_radius_matches_fd(coverage_case):
     g = geometry_grads(scene, cam, key, config, wimg, n_edge_samples=8192)
     h = 0.25
     # FD averaged over jitter iterations: kills the staircase noise that
-    # forced round 3's rtol 0.1 (see module docstring evidence)
+    # forced the earlier rtol 0.1 (see module docstring evidence)
     fds = [
         (J(scene.centers, scene.radii.at[0].add(h), it)
          - J(scene.centers, scene.radii.at[0].add(-h), it)) / (2 * h)
@@ -115,7 +117,7 @@ def test_attached_geom_primal_identical():
     np.testing.assert_array_equal(np.asarray(img_a), np.asarray(img_b))
 
 
-# ---- mesh translation (VERDICT r4 item 7): attached interior term via
+# ---- mesh translation: attached interior term via
 # forward-mode JVP through the XLA BVH traversal; visibility boundary
 # terms documented out of scope (diff/geometry.mesh_translation_grads)
 
@@ -125,8 +127,8 @@ def _floor_mesh_scene(dy=0.0, with_ceiling=False, ceiling_dy=0.0):
     projects outside the frustum), lit by a point light — translating it
     is a smooth functional, so per-seed FD is well-defined. Optional far
     ceiling quad (material 1) for the per-object path."""
-    from tpu_pathtracer.models import meshes
-    from tpu_pathtracer.models.mesh import build_bvh
+    from pathtracer.models import meshes
+    from pathtracer.models.mesh import build_bvh
 
     v, f, uv = meshes.quad([-40, dy, -40], [-40, dy, 40],
                            [40, dy, 40], [40, dy, -40])
@@ -156,7 +158,7 @@ def test_mesh_translation_grad_matches_fd():
     key = jax.random.key(5)
     wimg = jnp.asarray(
         np.random.default_rng(2).random((H, W, 3), np.float32))
-    from tpu_pathtracer.diff.geometry import mesh_translation_grads
+    from pathtracer.diff.geometry import mesh_translation_grads
 
     g = mesh_translation_grads(scene, cam, key, config, wimg)
     g = np.asarray(g)
@@ -179,7 +181,7 @@ def test_mesh_translation_grad_per_object():
     key = jax.random.key(7)
     wimg = jnp.asarray(
         np.random.default_rng(4).random((H, W, 3), np.float32))
-    from tpu_pathtracer.diff.geometry import mesh_translation_grads
+    from pathtracer.diff.geometry import mesh_translation_grads
 
     g = mesh_translation_grads(scene, cam, key, config, wimg,
                                objects=(0,))
@@ -203,7 +205,7 @@ def test_mesh_translation_grad_finite_on_cornell():
                          cs["fov"])
     config = RenderConfig(spp=2, max_bounces=4, use_nee=True)
     wimg = jnp.ones((18, 24, 3)) / (18 * 24 * 3)
-    from tpu_pathtracer.diff.geometry import mesh_translation_grads
+    from pathtracer.diff.geometry import mesh_translation_grads
 
     g = mesh_translation_grads(scene, cam, jax.random.key(1), config,
                                wimg)

@@ -12,14 +12,16 @@ the detached estimator differentiates through a fixed decision set, which
 FD with a throughput-perturbing step would not (documented estimator
 choice; score-function handling is future work).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.diff import inverse
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render
+from pathtracer.diff import inverse
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render
 
 
 def scalar_render(scene, cam, key, cfg, weights):
@@ -64,7 +66,7 @@ def test_grad_albedo_matches_fd():
     # One diffuse material (grey walls, id 3) — the dominant throughput path.
     get_set = (
         lambda s: s.mat_color[3],
-        lambda s, p: s.replace(mat_color=s.mat_color.at[3].set(p)),
+        lambda s, p: dataclasses.replace(s, mat_color=s.mat_color.at[3].set(p)),
         (3,),
     )
     g = fd_check(scene, cam, cfg, get_set, eps=5e-3, rtol=1e-2, atol=2e-3)
@@ -75,7 +77,7 @@ def test_grad_light_intensity_matches_fd():
     scene, cam, cfg = cornell_small()
     get_set = (
         lambda s: s.light_intensity[0],
-        lambda s, p: s.replace(light_intensity=s.light_intensity.at[0].set(p)),
+        lambda s, p: dataclasses.replace(s, light_intensity=s.light_intensity.at[0].set(p)),
         (3,),
     )
     g = fd_check(scene, cam, cfg, get_set, eps=5e-2, rtol=1e-2, atol=2e-3)
@@ -88,7 +90,7 @@ def test_grad_red_wall_color_single_channel():
     scene, cam, cfg = cornell_small()
     get_set = (
         lambda s: s.mat_color[1],
-        lambda s, p: s.replace(mat_color=s.mat_color.at[1].set(p)),
+        lambda s, p: dataclasses.replace(s, mat_color=s.mat_color.at[1].set(p)),
         (3,),
     )
     fd_check(scene, cam, cfg, get_set, eps=5e-3, rtol=1e-2, atol=2e-3)
@@ -101,7 +103,7 @@ def test_grad_camera_params_finite_nonzero():
     key = jax.random.key(0)
 
     def f(pos):
-        return jnp.mean(render(scene, cam.replace(pos=pos), key, cfg))
+        return jnp.mean(render(scene, dataclasses.replace(cam, pos=pos), key, cfg))
 
     g = np.array(jax.grad(f)(cam.pos))
     assert np.all(np.isfinite(g)) and np.abs(g).max() > 0
@@ -127,7 +129,7 @@ def test_grad_with_rr_and_deep_bounces_finite():
 def test_inverse_rendering_recovers_albedo():
     """Config 5 end-to-end: perturb the grey-wall albedo, run the sharded
     trainer, and verify the loss drops and albedo moves toward truth."""
-    from tpu_pathtracer.parallel.mesh import make_mesh
+    from pathtracer.parallel.mesh import make_mesh
 
     scene, cs = sc.cornell_spheres()
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 16, 16, cs["fov"])
@@ -171,7 +173,7 @@ def test_inverse_rendering_recovers_mesh_albedo_via_replay():
     (mesh lanes included)."""
     import optax
 
-    from tpu_pathtracer.diff.replay import render_replay
+    from pathtracer.diff.replay import render_replay
 
     scene, cs = sc.BUILTIN_SCENES["cornell-boxes"]()
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 16, 12,
@@ -187,7 +189,7 @@ def test_inverse_rendering_recovers_mesh_albedo_via_replay():
     true_albedo = np.array(scene.mat_color[1])  # the red wall material
 
     def loss_fn(mat_color):
-        s = scene.replace(mat_color=mat_color)
+        s = dataclasses.replace(scene, mat_color=mat_color)
         img = render_replay(s, cam, key, cfg, iteration=0)
         return jnp.mean((img - target) ** 2)
 
@@ -228,7 +230,7 @@ def test_grad_camera_pose_matches_fd_edge_free():
     w = jnp.asarray(np.random.default_rng(1).random((12, 16, 3), np.float32))
 
     def f(pos):
-        return jnp.sum(render(scene, cam.replace(pos=pos), key, cfg) * w)
+        return jnp.sum(render(scene, dataclasses.replace(cam, pos=pos), key, cfg) * w)
 
     g = np.array(jax.grad(f)(cam.pos))
     eps = 8e-3  # below this, f32 evaluation noise dominates the quotient

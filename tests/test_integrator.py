@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render_image, trace
-from tpu_pathtracer.models.scene import prim_attrs
-from tpu_pathtracer.ops import bsdf, vecmath as vm
-from tpu_pathtracer.ops.intersect import intersect
-from tpu_pathtracer.utils import rng
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render_image, trace
+from pathtracer.models.scene import prim_attrs
+from pathtracer.ops import bsdf, vecmath as vm
+from pathtracer.ops.intersect import intersect
+from pathtracer.utils import rng
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -151,7 +151,7 @@ def test_golden_config1():
 
 
 def test_progressive_accumulation_converges_means():
-    from tpu_pathtracer.models import progressive as prog
+    from pathtracer.models import progressive as prog
 
     scene, cs = sc.single_sphere()
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 16, 16, cs["fov"])
@@ -251,8 +251,8 @@ def test_zero_prim_padding_only_scene():
 def test_progressive_plus_sharded_consistency():
     """Progressive accumulation of sharded frames equals accumulation of
     single-device frames (lane-keyed RNG makes the frames identical)."""
-    from tpu_pathtracer.parallel.mesh import make_mesh
-    from tpu_pathtracer.parallel.sharding import render_sharded_jit
+    from pathtracer.parallel.mesh import make_mesh
+    from pathtracer.parallel.sharding import render_sharded_jit
 
     scene, cs = sc.single_sphere()
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 16, 16, cs["fov"])

@@ -2,16 +2,16 @@
 
 The oracle mirrors the reference's quadratic + root selection
 (reference primitive.h:39-45) and closest-hit scan (scene.h:71-94) in
-float64; the MXU-matmul formulation (ops/intersect.py) must agree within
+float64; the expanded contraction form (ops/intersect.py) must agree within
 float32 tolerance, including on the 1e5-radius "wall" spheres where the
 quadratic cancellation is worst.
 """
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.models import scene as sc
-from tpu_pathtracer.ops.intersect import BIG, intersect, intersect_p, ray_sphere_t
-from tpu_pathtracer.models.scene import EPSILON, prim_attrs
+from pathtracer.models import scene as sc
+from pathtracer.ops.intersect import BIG, intersect, intersect_p, ray_sphere_t
+from pathtracer.models.scene import EPSILON, prim_attrs
 
 
 def oracle_t(centers, radii, o, d, tmin=EPSILON, tmax=None):

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from tpu_pathtracer.io.image import read_png, save_png, tonemap, write_png
-from tpu_pathtracer.io.scene_io import load_scene, save_scene, scene_from_dict
-from tpu_pathtracer.models import scene as sc
+from pathtracer.io.image import read_png, save_png, tonemap, write_png
+from pathtracer.io.scene_io import load_scene, save_scene, scene_from_dict
+from pathtracer.models import scene as sc
 
 
 def test_png_roundtrip(tmp_path):
@@ -61,11 +61,11 @@ def test_scene_from_dict_validation():
 
 
 def test_cli_render_and_output(tmp_path):
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     out = str(tmp_path / "o.png")
     rc = main(["render", "--scene", "single-sphere", "--size", "24x24",
-               "--spp", "2", "--iterations", "1", "--backend", "xla",
+               "--spp", "2", "--iterations", "1",
                "-o", out, "-q"])
     assert rc == 0 and os.path.exists(out)
     img = read_png(out)
@@ -74,7 +74,7 @@ def test_cli_render_and_output(tmp_path):
 
 
 def test_cli_render_json_scene(tmp_path):
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     doc = {
         "camera": {"eye": [0, 0, 4], "look_at": [0, 0, 0], "up": [0, 1, 0],
@@ -91,7 +91,7 @@ def test_cli_render_json_scene(tmp_path):
         json.dump(doc, f)
     out = str(tmp_path / "o.png")
     rc = main(["render", "--scene", p, "--size", "16x16", "--iterations", "1",
-               "--backend", "xla", "-o", out, "-q"])
+               "-o", out, "-q"])
     assert rc == 0 and os.path.exists(out)
 
 
@@ -99,7 +99,7 @@ def test_cost_report_and_trace(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from tpu_pathtracer.utils.profiling import cost_report, trace
+    from pathtracer.utils.profiling import cost_report, trace
 
     def f(x):
         return (x @ x).sum()
@@ -118,8 +118,8 @@ def test_scene_json_with_meshes_and_tri_light(tmp_path):
     paths resolve against the scene file's directory."""
     import jax
 
-    from tpu_pathtracer.models import camera as cm
-    from tpu_pathtracer.models.integrator import RenderConfig, render_image
+    from pathtracer.models import camera as cm
+    from pathtracer.models.integrator import RenderConfig, render_image
 
     (tmp_path / "tri.obj").write_text(
         "v -2 6 -2\nv 2 6 -2\nv 0 6 2\nf 1 2 3\n"

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.models import camera as cm, meshes, scene as sc
-from tpu_pathtracer.models.mesh import build_bvh
-from tpu_pathtracer.models.integrator import RenderConfig, render_image
-from tpu_pathtracer.models.scene import prim_attrs
-from tpu_pathtracer.ops.intersect import intersect, intersect_p
-from tpu_pathtracer.ops.texture import sample_bilinear
-from tpu_pathtracer.ops.triangle import (
+from pathtracer.models import camera as cm, meshes, scene as sc
+from pathtracer.models.mesh import build_bvh
+from pathtracer.models.integrator import RenderConfig, render_image
+from pathtracer.models.scene import prim_attrs
+from pathtracer.ops.intersect import intersect, intersect_p
+from pathtracer.ops.texture import sample_bilinear
+from pathtracer.ops.triangle import (
     BIG, intersect_mesh, mesh_brute_force_t, moller_trumbore,
 )
 
@@ -155,340 +155,3 @@ def test_obj_loader(tmp_path):
     v, f, uv = meshes.load_obj(str(p))
     assert v.shape == (4, 3) and f.shape == (2, 3)
     np.testing.assert_allclose(uv[3], [1, 1])
-
-
-# ---------------------------------------------------------------------------
-# Packet-traversal Pallas kernel (interpret mode — runs in the CPU suite)
-
-
-def _packet_fixture():
-    v, f, uv = meshes.terrain(n=24, extent=40.0, height=8.0, seed=1)
-    mesh = build_bvh(v, f, uvs=uv, material_id=3, leaf_size=8)
-    from tpu_pathtracer.ops.pallas.mesh_kernel import pack_mesh
-
-    return mesh, pack_mesh(mesh)
-
-
-def test_packet_kernel_matches_xla_traversal():
-    """Interpret-mode packet walk == ops/triangle BVH traversal: same hit
-    t and triangle, and the kernel's in-slot attributes (normal from the
-    scalar cross, interpolated uv, material id) match the gathered ones."""
-    mesh, packed = _packet_fixture()
-    from tpu_pathtracer.ops.pallas.mesh_kernel import intersect_mesh_packet
-    from tpu_pathtracer.ops.triangle import intersect_mesh
-
-    rng = np.random.default_rng(0)
-    n = 700
-    o = jnp.asarray(
-        rng.uniform(-14, 14, (n, 3)).astype(np.float32) + [0, 25, 0]
-    )
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d[:, 1] -= 2.0  # bias downward at the terrain so most rays hit
-    d = jnp.asarray(d)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    ph = intersect_mesh_packet(packed, o, d, tmin=1e-3, interpret=True)
-    th = intersect_mesh(mesh, o, d, tmin=1e-3)
-
-    hit = np.asarray(th.t) < 1e29
-    assert hit.sum() > 300  # the fixture must actually exercise hits
-    np.testing.assert_allclose(
-        np.asarray(ph.t)[hit], np.asarray(th.t)[hit], rtol=1e-5
-    )
-    assert np.array_equal(np.asarray(ph.tri)[hit], np.asarray(th.tri)[hit])
-    # attributes: against the gathered references
-    tri = np.asarray(th.tri)[hit]
-    n_ref = np.asarray(mesh.n_geom)[tri]
-    np.testing.assert_allclose(
-        np.asarray(ph.n)[hit], n_ref, rtol=1e-4, atol=1e-5
-    )
-    uv_ref = (
-        np.asarray(mesh.uv0)[tri]
-        + np.asarray(th.u)[hit, None] * np.asarray(mesh.uv_e1)[tri]
-        + np.asarray(th.v)[hit, None] * np.asarray(mesh.uv_e2)[tri]
-    )
-    np.testing.assert_allclose(
-        np.asarray(ph.uv)[hit], uv_ref, rtol=1e-4, atol=1e-5
-    )
-    assert np.all(np.asarray(ph.mat)[hit] == 3)
-    # misses report t == BIG
-    assert np.all(np.asarray(ph.t)[~hit] > 1e29)
-
-
-def test_vmem_node_fallback_matches_smem_layout(monkeypatch):
-    """Forcing the 2-D VMEM node-table layout (flat_nodes=False — the
-    path taken past SMEM_NODE_BUDGET) reproduces the SMEM layout's hits
-    exactly. Keeps the fallback branch exercised: every real fixture is
-    small enough to take the SMEM path (ADVICE r3)."""
-    from tpu_pathtracer.ops.pallas import mesh_kernel as mk
-
-    mesh, packed = _packet_fixture()
-    rng = np.random.default_rng(3)
-    n = 400
-    o = jnp.asarray(
-        rng.uniform(-14, 14, (n, 3)).astype(np.float32) + [0, 25, 0]
-    )
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d[:, 1] -= 2.0
-    d = jnp.asarray(d)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    smem = mk.intersect_mesh_packet(packed, o, d, tmin=1e-3, interpret=True)
-    monkeypatch.setattr(mk, "SMEM_NODE_BUDGET", 0)
-    vmem = mk.intersect_mesh_packet(packed, o, d, tmin=1e-3, interpret=True)
-    assert np.asarray(smem.t)[np.asarray(smem.t) < 1e29].size > 150
-    np.testing.assert_array_equal(np.asarray(vmem.t), np.asarray(smem.t))
-    np.testing.assert_array_equal(np.asarray(vmem.tri), np.asarray(smem.tri))
-    np.testing.assert_array_equal(np.asarray(vmem.mat), np.asarray(smem.mat))
-    np.testing.assert_array_equal(np.asarray(vmem.n), np.asarray(smem.n))
-
-
-def test_any_hit_attrs_zero_sorted_and_unsorted():
-    """Any-hit mode returns zeroed tri/n/uv/mat in BOTH sort modes (only
-    t is meaningful) — sorted and unsorted calls must agree (ADVICE r3)."""
-    from tpu_pathtracer.ops.pallas.mesh_kernel import intersect_mesh_packet
-
-    mesh, packed = _packet_fixture()
-    rng = np.random.default_rng(5)
-    n = 300
-    o = jnp.asarray(
-        rng.uniform(-14, 14, (n, 3)).astype(np.float32) + [0, 25, 0]
-    )
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d[:, 1] -= 2.0
-    d = jnp.asarray(d)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    t_init = jnp.full((n,), 60.0, jnp.float32)
-
-    hs = intersect_mesh_packet(packed, o, d, tmin=1e-3, t_init=t_init,
-                               any_hit=True, sort=True, interpret=True)
-    hu = intersect_mesh_packet(packed, o, d, tmin=1e-3, t_init=t_init,
-                               any_hit=True, sort=False, interpret=True)
-    assert (np.asarray(hs.t) == 0.0).sum() > 50  # fixture occludes
-    np.testing.assert_array_equal(np.asarray(hs.t), np.asarray(hu.t))
-    for h in (hs, hu):
-        assert np.all(np.asarray(h.tri) == 0)
-        assert np.all(np.asarray(h.mat) == 0)
-        assert np.all(np.asarray(h.n) == 0.0)
-        assert np.all(np.asarray(h.uv) == 0.0)
-
-
-def _rand_rays(seed, n):
-    rng = np.random.default_rng(seed)
-    o = jnp.asarray(
-        rng.uniform(-14, 14, (n, 3)).astype(np.float32) + [0, 25, 0]
-    )
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d[:, 1] -= 1.0
-    d = jnp.asarray(d)
-    return o, d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-
-def test_two_pass_binned_matches_single_pass():
-    """The binned two-pass traversal (coarse bin_rays + cell-sorted fine
-    walk + provable-miss culling) returns the same hits as the classic
-    octant-sorted walk — closest-hit AND any-hit (VERDICT r3 item 2)."""
-    from tpu_pathtracer.ops.pallas.mesh_kernel import (
-        bin_rays, intersect_mesh_packet, pack_mesh,
-    )
-
-    mesh, packed = _packet_fixture()
-    coarse = pack_mesh(mesh, collapse_leaf=128, nodes_only=True)
-    assert coarse.num_nodes > 3  # fixture actually has coarse structure
-    o, d = _rand_rays(11, 600)
-
-    base = intersect_mesh_packet(packed, o, d, tmin=1e-3, interpret=True)
-    two = intersect_mesh_packet(packed, o, d, tmin=1e-3, coarse=coarse,
-                                interpret=True)
-    hit = np.asarray(base.t) < 1e29
-    assert hit.sum() > 200 and hit.sum() < 600  # hits AND misses exercised
-    np.testing.assert_allclose(np.asarray(two.t), np.asarray(base.t),
-                               rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(two.tri), np.asarray(base.tri))
-    np.testing.assert_allclose(np.asarray(two.n), np.asarray(base.n),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(two.mat), np.asarray(base.mat))
-
-    # binning soundness: a lane with NO coarse cell must have no mesh hit
-    cell = np.asarray(bin_rays(coarse, o, d,
-                               jnp.full((600,), 1e30, jnp.float32),
-                               tmin=1e-3, interpret=True)[0])
-    assert (cell == -1).sum() > 0
-    assert not hit[cell == -1].any()
-
-    # any-hit occlusion agreement on finite segments
-    t_init = jnp.full((600,), 40.0, jnp.float32)
-    ab = intersect_mesh_packet(packed, o, d, tmin=1e-3, t_init=t_init,
-                               any_hit=True, interpret=True)
-    at = intersect_mesh_packet(packed, o, d, tmin=1e-3, t_init=t_init,
-                               any_hit=True, coarse=coarse, interpret=True)
-    occ_b = np.asarray(ab.t) < 40.0
-    occ_t = np.asarray(at.t) < 40.0
-    assert occ_b.sum() > 50
-    np.testing.assert_array_equal(occ_t, occ_b)
-
-
-def test_two_pass_render_matches_single_pass_render():
-    """End-to-end: a cornell_boxes render through the two-pass traversal
-    equals the single-pass packet render (the sort/binning is invisible
-    to the estimate — same lanes, same streams)."""
-    import tpu_pathtracer.ops.pallas.mesh_kernel as mk
-
-    scene, cs = sc.cornell_boxes()
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 24, 18,
-                         cs["fov"])
-    cfg = RenderConfig(spp=2, max_bounces=3, use_nee=True)
-    orig = mk.intersect_mesh_packet
-    mk.intersect_mesh_packet = (
-        lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    )
-    try:
-        s1 = sc.with_packet_mesh(scene, two_pass=False)
-        s2 = sc.with_packet_mesh(scene, two_pass=True, coarse_leaf=8)
-        img1 = np.array(render_image(s1, cam, jax.random.key(7), cfg))
-        img2 = np.array(render_image(s2, cam, jax.random.key(7), cfg))
-    finally:
-        mk.intersect_mesh_packet = orig
-    np.testing.assert_allclose(img2, img1, rtol=1e-5, atol=1e-6)
-
-
-def test_packet_kernel_t_init_semantics():
-    """t_init prunes: hits at or beyond it are not reported (the caller's
-    sphere-pass distance), dead lanes (t_init <= 0) never hit, and a
-    shadow-style query (t_init = segment length) flags exactly the lanes
-    the full traversal would."""
-    mesh, packed = _packet_fixture()
-    from tpu_pathtracer.ops.pallas.mesh_kernel import intersect_mesh_packet
-
-    rng = np.random.default_rng(1)
-    n = 600
-    o = jnp.asarray(
-        rng.uniform(-14, 14, (n, 3)).astype(np.float32) + [0, 25, 0]
-    )
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d[:, 1] -= 1.0
-    d = jnp.asarray(d)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    full = intersect_mesh_packet(packed, o, d, tmin=1e-3, interpret=True)
-    t_full = np.asarray(full.t)
-
-    # clip: lanes whose true hit is beyond t_init come back at t_init
-    t_init = jnp.full((n,), 20.0, jnp.float32)
-    clipped = intersect_mesh_packet(
-        packed, o, d, tmin=1e-3, t_init=t_init, interpret=True
-    )
-    tc = np.asarray(clipped.t)
-    near = t_full < 20.0
-    np.testing.assert_allclose(tc[near], t_full[near], rtol=1e-5)
-    assert np.all(tc[~near] == 20.0)
-
-    # dead lanes: t_init = 0 -> BIG (never a hit), regardless of geometry
-    t_dead = jnp.where(jnp.arange(n) % 2 == 0, 0.0, 20.0)
-    half = intersect_mesh_packet(
-        packed, o, d, tmin=1e-3, t_init=t_dead, interpret=True
-    )
-    th_ = np.asarray(half.t)
-    assert np.all(th_[::2] > 1e29)
-    np.testing.assert_allclose(th_[1::2], tc[1::2], rtol=1e-5)
-
-
-def test_packet_kernel_any_hit_occlusion():
-    """any_hit=True flags exactly the lanes the closest-hit walk flags as
-    occluded within the segment (t < t_init), while resolving no
-    attributes — the shadow-wave fast path (ops/intersect.py intersect_p)."""
-    mesh, packed = _packet_fixture()
-    from tpu_pathtracer.ops.pallas.mesh_kernel import intersect_mesh_packet
-
-    rng = np.random.default_rng(2)
-    n = 600
-    o = jnp.asarray(
-        rng.uniform(-14, 14, (n, 3)).astype(np.float32) + [0, 25, 0]
-    )
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d[:, 1] -= 1.0
-    d = jnp.asarray(d)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    seg = jnp.where(jnp.arange(n) % 3 == 0, 0.0, 30.0)  # some dead lanes
-    closest = intersect_mesh_packet(
-        packed, o, d, tmin=1e-3, t_init=seg, interpret=True
-    )
-    anyh = intersect_mesh_packet(
-        packed, o, d, tmin=1e-3, t_init=seg, any_hit=True, interpret=True
-    )
-    occ_ref = np.asarray(closest.t) < np.asarray(seg)
-    occ_any = np.asarray(anyh.t) < np.asarray(seg)
-    assert occ_ref.sum() > 50  # fixture actually occludes
-    np.testing.assert_array_equal(occ_any, occ_ref)
-    # dead lanes never occlude
-    assert not occ_any[::3].any()
-
-
-def test_packet_path_full_render_matches_xla_path():
-    """End-to-end: a mesh scene rendered with the packet kernel (interpret)
-    equals the XLA-traversal render — the intersect-first integrator feeds
-    liveness and sphere-t pruning into the kernel without changing the
-    image."""
-    scene, cs = sc.cornell_boxes()
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 24, 18,
-                         cs["fov"])
-    cfg = RenderConfig(spp=2, max_bounces=3, use_nee=True)
-    img_xla = np.asarray(render_image(scene, cam, jax.random.key(3), cfg))
-
-    import tpu_pathtracer.ops.pallas.mesh_kernel as mk
-
-    orig = mk.intersect_mesh_packet
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    mk.intersect_mesh_packet = interp
-    try:
-        scene_p = sc.with_packet_mesh(scene)
-        img_pk = np.asarray(
-            render_image(scene_p, cam, jax.random.key(3), cfg)
-        )
-    finally:
-        mk.intersect_mesh_packet = orig
-    np.testing.assert_allclose(img_pk, img_xla, rtol=5e-4, atol=1e-5)
-
-
-def test_bounce_sort_restores_order_with_global_lane_ids():
-    """Sharded callers pass GLOBAL lane ids (pix*spp+s with a shard
-    offset); the bounce-level sort must restore lane order by the carried
-    LOCAL positions, not the lane ids. Regression: the restore used the
-    ids as scatter positions, silently dropping every out-of-range update
-    for offset ids."""
-    from tpu_pathtracer.models import camera as cam_mod
-    from tpu_pathtracer.models.integrator import trace
-    from tpu_pathtracer.utils import rng
-    import tpu_pathtracer.ops.pallas.mesh_kernel as mk
-
-    scene, cs = sc.cornell_boxes()
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 16, 12,
-                         cs["fov"])
-    cfg = RenderConfig(spp=1, max_bounces=2, use_nee=True)
-    n = 16 * 12
-    lane = jnp.arange(n, dtype=jnp.int32)
-    gids = lane + jnp.int32(10_000)  # a later shard's global ids
-    it_key = rng.iteration_key(jax.random.key(11), 0)
-    u = rng.camera_uniforms(it_key, gids)
-    o, d = cam_mod.generate_rays(cam, lane % 16, lane // 16,
-                                 u[:, 0] - 0.5, u[:, 1] - 0.5)
-
-    # oracle: the XLA traversal (no packet mesh -> no bounce sort)
-    L_ref = np.asarray(trace(scene, o, d, gids, it_key, cfg))
-
-    orig = mk.intersect_mesh_packet
-    mk.intersect_mesh_packet = (
-        lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    )
-    try:
-        L_pk = np.asarray(
-            trace(sc.with_packet_mesh(scene), o, d, gids, it_key, cfg)
-        )
-    finally:
-        mk.intersect_mesh_packet = orig
-    np.testing.assert_allclose(L_pk, L_ref, rtol=5e-4, atol=1e-5)

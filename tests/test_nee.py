@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render_image
-from tpu_pathtracer.ops import lights, vecmath as vm
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render_image
+from pathtracer.ops import lights, vecmath as vm
 
 
 def avg_render(scene, cam, cfg, iters, key=None):
@@ -113,7 +113,7 @@ def test_light_sample_geometry():
 
 
 def test_mis_weights_sum_to_one():
-    from tpu_pathtracer.ops.sampling import power_heuristic
+    from pathtracer.ops.sampling import power_heuristic
     pf = jnp.asarray([0.5, 2.0, 0.1])
     pg = jnp.asarray([0.3, 0.3, 3.0])
     w1 = power_heuristic(1.0, pf, 1.0, pg)
@@ -123,7 +123,7 @@ def test_mis_weights_sum_to_one():
 
 def test_distribution_1d():
     import jax.numpy as jnp
-    from tpu_pathtracer.ops.sampling import (
+    from pathtracer.ops.sampling import (
         make_distribution_1d, sample_distribution_1d,
     )
     w = jnp.asarray([1.0, 3.0, 0.0, 4.0])
@@ -160,7 +160,7 @@ def test_power_weighted_two_lights_unbiased():
     ratio = ne.mean() / bf.mean()
     assert abs(ratio - 1.0) < 0.05, ratio
     # selection distribution really is power-weighted
-    from tpu_pathtracer.ops import lights as lt
+    from pathtracer.ops import lights as lt
     import jax.numpy as jnp
     u = jnp.asarray(np.random.default_rng(1).random((4000, 3), np.float32))
     p = jnp.tile(jnp.asarray([[0.0, 0.5, 3.0]]), (4000, 1))

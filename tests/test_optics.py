@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.ops import optics, vecmath as vm
+from pathtracer.ops import optics, vecmath as vm
 
 
 def test_reflect_mirror_law():

@@ -4,14 +4,16 @@ Both differentiate the SAME detached-sampling estimator, so their
 gradients must agree to float tolerance — but replay stores no per-bounce
 residuals (its backward is a second forward walk).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.diff.replay import render_replay, trace_replay
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render
+from pathtracer.diff.replay import render_replay, trace_replay
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render
 
 
 def setup(name="cornell", w=12, h=10, spp=2, bounces=3, nee=False):
@@ -24,7 +26,7 @@ def setup(name="cornell", w=12, h=10, spp=2, bounces=3, nee=False):
 
 def grads_autodiff(scene, cam, cfg, key, weights):
     def f(params):
-        s = scene.replace(mat_color=params[0], light_intensity=params[1])
+        s = dataclasses.replace(scene, mat_color=params[0], light_intensity=params[1])
         return jnp.sum(render(s, cam, key, cfg) * weights)
 
     return jax.grad(f)((scene.mat_color, scene.light_intensity))
@@ -32,7 +34,7 @@ def grads_autodiff(scene, cam, cfg, key, weights):
 
 def grads_replay(scene, cam, cfg, key, weights):
     def f(params):
-        s = scene.replace(mat_color=params[0], light_intensity=params[1])
+        s = dataclasses.replace(scene, mat_color=params[0], light_intensity=params[1])
         return jnp.sum(render_replay(s, cam, key, cfg) * weights)
 
     return jax.grad(f)((scene.mat_color, scene.light_intensity))
@@ -87,8 +89,8 @@ def test_replay_matches_autodiff_mesh(name, nee):
 
 def _textured_setup():
     """Tinted checker floor (tex * mat_color) + emissive sphere."""
-    from tpu_pathtracer.models import meshes
-    from tpu_pathtracer.models.mesh import build_bvh
+    from pathtracer.models import meshes
+    from pathtracer.models.mesh import build_bvh
 
     v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
                            [10, 0, -10])
@@ -139,7 +141,7 @@ def test_texture_atlas_gradients_fd():
     key = jax.random.key(4)
 
     def loss(tex):
-        s = scene.replace(textures=tex)
+        s = dataclasses.replace(scene, textures=tex)
         return jnp.mean(render(s, cam, key, cfg))
 
     g = jax.jit(jax.grad(loss))(scene.textures)

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.ops import sampling, vecmath as vm
+from pathtracer.ops import sampling, vecmath as vm
 
 N = 200_000
 

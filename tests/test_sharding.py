@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.diff import inverse
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render_image
-from tpu_pathtracer.parallel.mesh import make_mesh
-from tpu_pathtracer.parallel.sharding import render_sharded_jit
+from pathtracer.diff import inverse
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render_image
+from pathtracer.parallel.mesh import make_mesh
+from pathtracer.parallel.sharding import render_sharded_jit
 
 
 def setup(w=16, h=16, spp=4, bounces=4):

@@ -6,7 +6,7 @@ Cornell box use an emissive ceiling quad. These tests pin:
   - emitter-hit transport sees quad emission (one-sided);
   - the area sampler's geometry and solid-angle pdf;
   - NEE+MIS == brute force within MC tolerance on the emissive-quad
-    Cornell box (the VERDICT item-8 golden);
+    Cornell box;
   - MIS factor consistency between sampler and counterweight;
   - builder validation.
 """
@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig, render_image
-from tpu_pathtracer.ops import lights
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig, render_image
+from pathtracer.ops import lights
 
 
 def avg_render(scene, cam, cfg, iters, key=None):
@@ -102,7 +102,7 @@ def test_mis_factor_matches_sampler(quad_box):
 
 
 def test_tri_nee_matches_brute_force(quad_box):
-    """VERDICT item 8 golden: the emissive-quad Cornell box renders the
+    """The emissive-quad Cornell box renders the
     same image under NEE+MIS and brute force (MC tolerance)."""
     scene, cs = quad_box
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 32, 24,
@@ -128,8 +128,8 @@ def test_tri_nee_matches_brute_force(quad_box):
 def test_mixed_sphere_and_tri_lights():
     """A scene with BOTH a sphere emitter and a tri light: the shared
     power-proportional selector keeps NEE unbiased across types."""
-    from tpu_pathtracer.models import meshes
-    from tpu_pathtracer.models.mesh import build_bvh
+    from pathtracer.models import meshes
+    from pathtracer.models.mesh import build_bvh
 
     v, f, uv = meshes.quad([-8, 12, -8], [8, 12, -8], [8, 12, 8],
                            [-8, 12, 8])  # normal -y
@@ -154,8 +154,8 @@ def test_builder_validation():
     with pytest.raises(ValueError, match="requires a mesh"):
         sc.make_scene([], [sc.diffuse([1, 1, 1])],
                       [sc.tri_light(0, [1, 1, 1])])
-    from tpu_pathtracer.models import meshes
-    from tpu_pathtracer.models.mesh import build_bvh
+    from pathtracer.models import meshes
+    from pathtracer.models.mesh import build_bvh
 
     v, f, uv = meshes.quad([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0])
     mesh = build_bvh(v, f, uv, 0)

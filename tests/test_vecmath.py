@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.ops import vecmath as vm
+from pathtracer.ops import vecmath as vm
 
 
 def rand(shape, seed=0, lo=-1.0, hi=1.0):

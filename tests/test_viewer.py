@@ -3,9 +3,9 @@ import io
 
 import numpy as np
 
-from tpu_pathtracer.models import camera as cm, scene as sc
-from tpu_pathtracer.models.integrator import RenderConfig
-from tpu_pathtracer.viewer import drag_camera, run_viewer
+from pathtracer.models import camera as cm, scene as sc
+from pathtracer.models.integrator import RenderConfig
+from pathtracer.viewer import drag_camera, run_viewer
 
 
 def _cam(w=16, h=12):
@@ -25,15 +25,21 @@ def test_headless_smoke():
 
 
 def test_headless_smoke_pallas_backend():
-    """The viewer drives the persistent kernel (interpreter on CPU) —
-    the interactive fast path for sphere scenes on TPU."""
+    """The viewer drives the persistent kernel when handed a kernel
+    renderer (the interpreter, explicitly, on the CPU) — the interactive
+    path for sphere scenes on the GPU."""
+    from pathtracer.models.progressive import PersistentRenderer
+
     scene, camera = _cam()
+    config = RenderConfig(spp=2, max_bounces=2)
+    r = PersistentRenderer(scene, camera, config, seed=1, budget=4,
+                           interpret=True)
     n = run_viewer(
-        scene, camera, RenderConfig(spp=2, max_bounces=2), seed=1,
-        max_frames=2, interactive=False, out=io.StringIO(),
-        backend="pallas",
+        scene, camera, config, seed=1, max_frames=2, interactive=False,
+        out=io.StringIO(), renderer=r,
     )
     assert n == 2
+    assert r.min_samples >= 1
 
 
 def test_drag_camera_left_rotates():
